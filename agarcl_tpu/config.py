@@ -140,3 +140,13 @@ class EnvConfig:
             for i in range(self.num_bots):
                 types.append(i + 1 if i < 4 else 1)
         return tuple(types)
+
+
+def bench_config(**overrides) -> EnvConfig:
+    """The benchmark world of bench.py and chip_smoke.py: arena 350, 500
+    pellets, 10 viruses, 4 ticks per step, delta-mass reward, mode 4."""
+    base = dict(num_agents=1, ticks_per_step=4, arena_size=350,
+                num_pellets=500, num_viruses=10, num_bots=0,
+                reward_type=True, mode=4)
+    base.update(overrides)
+    return EnvConfig(**base)

@@ -48,7 +48,7 @@ def pellet_qparams(cfg: EnvConfig):
 def pellet_spawn_keys(cfg: EnvConfig, seed, tick, slot):
     """(slot,)-shaped i32 pellet keys drawn on the quantized grid with
     pure integer arithmetic (prng.uniform_q) — bit-exact across XLA
-    programs, the Pallas kernel, and the oracle. Consumes the same RNG
+    programs, backends and the oracle. Consumes the same RNG
     counters (STREAM_PELLET, tick, slot, axis 0/1) the float draw did."""
     qlx, nqx, qly, nqy = pellet_qparams(cfg)
     qx = prng.uniform_q(nqx, seed, prng.STREAM_PELLET, tick, slot, 0) + qlx

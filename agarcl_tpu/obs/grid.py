@@ -44,11 +44,9 @@ class GridObsConfig:
     observe_others: bool = True
     observe_viruses: bool = True
     observe_pellets: bool = True
-    # Output dtype. DEFAULT int16 (saturating): the (N, C, G, G) frame
-    # write is the measured floor of the fused grid kernel at large
-    # batches, and int16 halves it (1.38M vs 0.78M env-steps/s at
-    # 64x64/8192, BASELINE.md round 4). Saturation analysis — why int16
-    # is safe as the default:
+    # Output dtype. DEFAULT int16 (saturating): the (N, C, G, G) frame is
+    # written every step and int16 halves its bytes against int32.
+    # Saturation analysis — why int16 is safe as the default:
     #   oob is -1/0, pellet presence 0/1, pellet count <= capacity (512),
     #   virus max/total mass <= virus capacity * max virus mass
     #   (26 * 170 = 4420) — all far below 32767. The only channels that
@@ -76,10 +74,32 @@ class GridObsConfig:
                     int8=jnp.int8)[self.out_dtype]
 
 
+def _trunc_bin(s, view, G):
+    """trunc(s / (2 * view) + G / 2) in exact arithmetic, as int32.
+
+    s = 2 * G * (pos - center) and view is integer-valued, so every
+    (2b - G) * view below is an exact integer in f32 and each comparison
+    with s is exact: the bin depends on s alone, not on how a backend
+    divides (the GPU's f32 division is a 2-ulp approximation). The f32
+    quotient only seeds the search."""
+    b = jnp.floor((s / view + G) * 0.5).astype(jnp.int32)
+
+    def edge(k):
+        return (2 * k - G).astype(jnp.float32) * view
+
+    b = jnp.where(edge(b) > s, b - 1, b)          # largest b with
+    b = jnp.where(edge(b + 1) <= s, b + 1, b)     # edge(b) <= s
+    # the C cast truncates toward zero: (-1, 0) maps to bin 0
+    neg = s < -G * view
+    return jnp.where(neg, jnp.where(s > -(G + 2) * view, 0, -1), b)
+
+
 def _to_grid(pos, center, view, G):
-    """World -> grid bin with C-style trunc cast; returns (gx, gy, inside)."""
-    diff = pos - center
-    g = jnp.trunc(G * diff / view + G / 2.0).astype(jnp.int32)
+    """World -> grid bin, trunc(G * (pos - center) / view + G / 2) with the
+    C-style trunc cast; returns (gx, gy, inside). view must be
+    integer-valued (clamp(2 * mass, 100, 300))."""
+    s = (2.0 * G) * (pos - center)
+    g = _trunc_bin(s, view, G)
     gx, gy = g[..., 0], g[..., 1]
     inside = (gx >= 0) & (gx < G) & (gy >= 0) & (gy < G)
     return gx, gy, inside
@@ -102,9 +122,10 @@ def grid_frame(cfg: EnvConfig, ocfg: GridObsConfig,
     def scat(pos, alive, mass, op, unroll=False):
         """Rasterize entities per agent; (A, G, G) int32.
 
-        "add" avoids TPU scatters entirely: the grid is two one-hot
-        matmuls, einsum('aeg,aeh->agh') — integer-exact in f32 (HIGHEST
-        precision; all channel sums < 2^24) and MXU-shaped. "max"/"min"
+        "add" avoids scatters entirely: the grid is two one-hot matmuls,
+        einsum('aeg,aeh->agh') — integer-exact in f32 (HIGHEST precision
+        runs true f32, not a reduced-precision mode; all channel sums
+        < 2^24). "max"/"min"
         with unroll=True (small entity counts: viruses, cells) become a
         chain of elementwise maxes XLA fuses into one kernel; otherwise
         they fall back to scatter (multi-player paths).
@@ -148,11 +169,13 @@ def grid_frame(cfg: EnvConfig, ocfg: GridObsConfig,
 
     chans = []
     # out-of-bounds channel (GridEnvironment.hpp:240-248)
+    # bin i's world offset (i - G/2) * view / G: exact for power-of-two
+    # G (an integer times a power of two), so the one rounding left is the
+    # add to the centroid, the same on every backend
     ij = jnp.arange(G, dtype=jnp.float32)
-    dx = (ij[:, None] - G / 2.0) * view[:, :, None] / G      # (A,G,1)
-    dy = (ij[None, :] - G / 2.0) * view[:, :, None] / G      # broadcast below
-    wx = centroid[:, 0:1, None] + dx                         # (A,G,1)
-    wy = centroid[:, 1:2, None] + (ij[None, None, :] - G / 2.0) * view[:, :, None] / G
+    off = (ij - G / 2.0) * view[:, :, None] * (1.0 / G)     # (A,1,G)
+    wx = centroid[:, 0:1, None] + jnp.swapaxes(off, 1, 2)    # (A,G,1)
+    wy = centroid[:, 1:2, None] + off                        # (A,1,G)
     in_bounds = ((wx >= 0) & (wx < cfg.arena_width)
                  & (wy >= 0) & (wy < cfg.arena_height))      # (A,G,G)
     chans.append(jnp.where(in_bounds, 0, -1).astype(jnp.int32))

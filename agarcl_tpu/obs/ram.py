@@ -41,15 +41,13 @@ class RamObsConfig:
 # floats) with its low B mantissa bits replaced by the entity's table index
 # (B = ceil(log2(capacity))). This quantizes the distance comparison to
 # ~2^(B-23) relative precision and resolves ties (and near-ties) by lowest
-# index — a total order with *unique* keys, which lets the Pallas kernel
-# extract each neighbor with one min-reduce and one compare instead of the
-# 2-min-reduce + masked-index tiebreak (ops/fused_obs.py). Dead entries get
-# DEAD_KEY (INT32_MAX). Both this XLA path and the fused kernels use the
-# same key, so they stay bit-identical. The ram obs is our own contract —
-# the reference declares but never implements it
-# (/root/reference/gym_agario/AgarioEnv.py:52,211).
+# index — a total order with *unique* keys, so each neighbor is extracted by
+# one min-reduce and one compare, and any implementation that uses the same
+# key picks the same neighbors. Dead entries get DEAD_KEY (INT32_MAX). The
+# ram obs is our own contract — the reference declares but never
+# implements it (/root/reference/gym_agario/AgarioEnv.py:52,211).
 
-DEAD_KEY = 0x7FFFFFFF  # plain int: inlines as a literal inside Pallas kernels
+DEAD_KEY = 0x7FFFFFFF  # plain int: inlines as a literal
 
 
 def key_index_bits(capacity: int) -> int:
@@ -98,7 +96,11 @@ def ram_frame(cfg: EnvConfig, ocfg: RamObsConfig,
     def nearest(pos, alive, k, extra=None):
         n = pos.shape[0]
         rel = pos[None, :, :] - me[:, None, :]   # (A, N, 2)
-        d2 = jnp.sum(rel * rel, axis=-1)
+        # selection distance from offsets rounded to 12 significant bits:
+        # their squares are exact in f32, so the sum rounds once whether
+        # or not a backend fuses it into an FMA (SPEC "Backends")
+        q = jax.lax.reduce_precision(rel, exponent_bits=8, mantissa_bits=11)
+        d2 = q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1]
         iota = jnp.arange(n, dtype=jnp.int32)[None, :]
         key = pack_nearest_key(d2, iota, alive[None, :], n)
         sel_key, idx = jax.lax.top_k(-key, k)    # k smallest keys

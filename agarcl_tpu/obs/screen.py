@@ -66,12 +66,8 @@ class ScreenObsConfig:
     # difference per class.
     polygon_edges: bool = False
     # Virus silhouette under polygon_edges: "wavy" (the reference's
-    # 150-gon sine rim — XLA rasterizer only: the rim is CONCAVE, so its
-    # row intersections are multi-interval and don't fit the fused
-    # kernel's half-plane strip math) or "circle" (viruses stay circles —
-    # lets polygon frames ride the fused Pallas kernel; the wave is a
-    # +-6.7% rim modulation, bench/polygon_iou.py). Both rasterizers
-    # honor this flag.
+    # 150-gon sine rim) or "circle" (viruses stay circles; the wave is a
+    # +-6.7% rim modulation, bench/polygon_iou.py).
     polygon_virus: str = "wavy"
 
 
@@ -117,6 +113,20 @@ def _poly_radius_factor(dx, dy, n_sides: int, wavy: bool = False):
     return r1 * r2 * s / (r2 * jnp.sin(delta - t) + r1 * jnp.sin(t))
 
 
+def _pixel_idx(S: int) -> np.ndarray:
+    """(S,) f32 pixel-center coordinates in (-1, 1), computed on the host
+    so that every backend starts from the same values."""
+    return (np.arange(S, dtype=np.float32) + np.float32(0.5)) \
+        * np.float32(2.0) / np.float32(S) - np.float32(1.0)
+
+
+def _camera_z(pmass):
+    """renderer.hpp:91 z = clamp(100 + mass / 10, 100, 900), pinned as
+    (1000 + mass) * f32(0.1): an exact sum and one rounded product (the
+    GPU's division is a 2-ulp approximation)."""
+    return jnp.clip((1000.0 + pmass) * np.float32(0.1), 100.0, 900.0)
+
+
 def _pixel_world_coords(center, z, S):
     """World coordinates of pixel centers: (..., S) for x and y separately.
 
@@ -124,10 +134,10 @@ def _pixel_world_coords(center, z, S):
     pixel_half (A,)).
     """
     half = z * _TAN_HALF_FOV
-    idx = (jnp.arange(S, dtype=jnp.float32) + 0.5) * 2.0 / S - 1.0  # (-1,1)
-    wx = center[:, 0:1] + idx[None, :] * half[:, None]
-    wy = center[:, 1:2] + idx[None, :] * half[:, None]
-    pixel_half = half / S
+    step = _pixel_idx(S)[None, :] * half[:, None]             # (A, S)
+    wx = center[:, 0:1] + step
+    wy = center[:, 1:2] + step
+    pixel_half = half * np.float32(1.0 / S)
     return wx, wy, half, pixel_half
 
 
@@ -191,14 +201,15 @@ def _strip_K(r: float, S: int) -> int:
 
 def _strip_cover(wx, wy, center, half, pos, rad, alive, K: int,
                  n_sides: int | None = None):
-    """(A, S, S) bool coverage via row-strip decomposition — the MXU path
-    for numerous small entities (pellets/foods).
+    """(A, S, S) bool coverage via row-strip decomposition — the matmul
+    path for numerous small entities (pellets/foods).
 
     Each circle intersects at most K consecutive pixel rows (K static per
     entity class via _strip_K); strip (n, k) carries the class test restricted
     to row base_n + k, which factors the coverage test exactly into a row
     one-hot (S, N*K) times a per-strip column mask (N*K, S) — one bf16/f32
-    matmul instead of S*S*N scalar tests. Pixel-exact vs the direct test:
+    matmul instead of S*S*N scalar tests (0/1 bf16 operands with f32
+    accumulation: exact counts). Pixel-exact vs the direct test:
     the strip predicate is the same f32 `dx*dx <= r*r - dy*dy` with wy
     rebuilt from the row index by the identical expression.
 
@@ -213,8 +224,9 @@ def _strip_cover(wx, wy, center, half, pos, rad, alive, K: int,
     u = (pos[None, :, 1] - wy[:, 0:1]) / delta[:, None]        # (A, N) frac row
     base = jnp.floor(u - r[None, :] / delta[:, None]).astype(jnp.int32) - 1
     rows = base[:, :, None] + jnp.arange(K, dtype=jnp.int32)   # (A, N, K)
-    rows_f = rows.astype(jnp.float32)
-    idx = (rows_f + 0.5) * 2.0 / S - 1.0                       # == pixel grid expr
+    # the row's y by the same expression as the pixel grid's wy (rows
+    # outside the image are dropped by the one-hot below)
+    idx = jnp.asarray(_pixel_idx(S))[jnp.clip(rows, 0, S - 1)]
     wy_rows = center[:, None, None, 1] + idx * half[:, None, None]
     dyr = wy_rows - pos[None, :, None, 1]                      # (A, N, K)
     dxr = wx[:, None, :] - pos[None, :, 0:1]                   # (A, N, S)
@@ -239,9 +251,10 @@ def _strip_cover(wx, wy, center, half, pos, rad, alive, K: int,
 def _grid_cover(wx, wy, pixel_half, arena_w, arena_h):
     """(A, S, S) bool — pixel lies on one of the 8x8 arena grid lines
     (renderables.hpp:245-340: lines at k/(NLines-1) * arena)."""
-    ks = jnp.arange(_NUM_GRID_LINES, dtype=jnp.float32) / (_NUM_GRID_LINES - 1)
-    xs = ks * arena_w
-    ys = ks * arena_h
+    ks = (np.arange(_NUM_GRID_LINES, dtype=np.float32)
+          / np.float32(_NUM_GRID_LINES - 1))
+    xs = ks * np.float32(arena_w)
+    ys = ks * np.float32(arena_h)
     ph = pixel_half[:, None, None]
     on_v = jnp.any(jnp.abs(wx[:, None, :] - xs[None, :, None]) <= ph, axis=1)
     on_h = jnp.any(jnp.abs(wy[:, None, :] - ys[None, :, None]) <= ph, axis=1)
@@ -268,7 +281,7 @@ def _class_map(cfg: EnvConfig, state: GameState, S: int,
     A = cfg.num_agents
     centroid = state.player_centroid()[:A]
     pmass = state.player_mass()[:A].astype(jnp.float32)
-    z = jnp.clip(100.0 + pmass / 10.0, 100.0, 900.0)         # renderer.hpp:91
+    z = _camera_z(pmass)
     wx, wy, half, ph = _pixel_world_coords(centroid, z, S)
 
     cls = jnp.zeros((A, S, S), jnp.int32)
@@ -352,9 +365,9 @@ _NATURAL_COLORS = jnp.asarray([
 
 
 def _apply_palette(cls, table):
-    """Select-chain palette application: a (7, C) table gather lowers to a
-    per-element dynamic gather on TPU (~30 ms per 2048-env 84x84 frame);
-    seven fused selects are pure bandwidth."""
+    """Select-chain palette application: seven elementwise selects that
+    XLA fuses into one bandwidth-bound pass, instead of a (7, C) table
+    gather per pixel."""
     out = jnp.broadcast_to(table[0], cls.shape + (table.shape[1],))
     for k in range(1, table.shape[0]):
         out = jnp.where((cls == k)[..., None], table[k], out)

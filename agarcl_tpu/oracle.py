@@ -2,12 +2,15 @@
 
 The oracle is an independent scalar implementation of the pinned tick spec
 (SPEC.md); parity tests run the JAX engine and the oracle side by side from
-the same seed and compare trajectories. Builds on demand with `make`.
+the same seed and compare trajectories. Builds `liboracle.so` from
+`oracle.cpp` on first use with `make`, under a file lock so that parallel test
+workers build it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -32,18 +35,21 @@ def _load():
             "a development/parity-test tool that lives in the repository "
             "checkout, not the installed wheel; run from a checkout or set "
             "AGARCL_ORACLE_DIR to the oracle/ directory.")
-    if (not os.path.exists(_LIB_PATH)
-            or os.path.getmtime(_LIB_PATH)
-            < os.path.getmtime(os.path.join(_ORACLE_DIR, "oracle.cpp"))):
-        subprocess.run(["make", "-C", _ORACLE_DIR], check=True,
-                       capture_output=True)
-    lib = ctypes.CDLL(_LIB_PATH)
+    with open(os.path.join(_ORACLE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (not os.path.exists(_LIB_PATH)
+                or os.path.getmtime(_LIB_PATH)
+                < os.path.getmtime(os.path.join(_ORACLE_DIR, "oracle.cpp"))):
+            subprocess.run(["make", "-C", _ORACLE_DIR], check=True,
+                           capture_output=True)
+        lib = ctypes.CDLL(_LIB_PATH)
     lib.oracle_create.restype = ctypes.c_void_p
     lib.oracle_create.argtypes = [ctypes.c_int] * 13 + [
         ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8
     lib.oracle_destroy.argtypes = [ctypes.c_void_p]
     lib.oracle_reset.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
     lib.oracle_tick.argtypes = [ctypes.c_void_p]
+    lib.oracle_set_respawn_main.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.oracle_step.argtypes = [ctypes.c_void_p,
                                 ctypes.POINTER(ctypes.c_float),
                                 ctypes.POINTER(ctypes.c_double),
@@ -59,6 +65,14 @@ def _load():
         + [F, F, I, I, U]                        # viruses
         + [F, F, U]                              # foods
         + [ctypes.POINTER(ctypes.c_int64)])
+    lib.oracle_set_state.argtypes = (
+        [ctypes.c_void_p]
+        + [F, I, I, I, I, I, F, I, I, I, I, I, I]    # player fields
+        + [F, F, F, I, U, I, I, ctypes.c_int]        # cell fields
+        + [F, U]                                     # pellets
+        + [F, F, I, I, U]                            # viruses
+        + [F, F, U, ctypes.c_int]                    # foods
+        + [ctypes.c_int64, ctypes.c_uint32, U, ctypes.c_int])
     _lib = lib
     return lib
 
@@ -70,7 +84,7 @@ def _ptr(arr, ctype):
 class OracleEnv:
     """Scalar single-env oracle with the same reset/step API as env.py."""
 
-    def __init__(self, cfg: EnvConfig):
+    def __init__(self, cfg: EnvConfig, respawn_main_during_obs: bool = False):
         self.cfg = cfg
         lib = _load()
         ms = cfg.mode_spec
@@ -85,6 +99,7 @@ class OracleEnv:
             int(ms.mass_decay), int(ms.squared_pellets), int(ms.pellet_regen),
             ms.agent_mass, int(ms.respawn_all), int(ms.done_on_death),
             int(ms.done_on_max_mass))
+        lib.oracle_set_respawn_main(self._h, int(respawn_main_during_obs))
         self._lib = lib
 
     def __del__(self):
@@ -109,6 +124,41 @@ class OracleEnv:
                               _ptr(rewards, ctypes.c_double),
                               _ptr(dones, ctypes.c_uint8))
         return rewards, dones.astype(bool)
+
+    def set_state(self, state) -> None:
+        """Load one env's GameState (unbatched) into the oracle."""
+        cfg = self.cfg
+
+        def arr(x, dtype):
+            return np.ascontiguousarray(np.asarray(x), dtype=dtype)
+
+        f32, i32, u8 = np.float32, np.int32, np.uint8
+        ppos, palive = state.pellet_xy_alive(cfg)
+        bufs = [
+            arr(state.target, f32), arr(state.action, i32),
+            arr(state.split_cooldown, i32), arr(state.feed_cooldown, i32),
+            arr(state.elapsed_ticks, i32), arr(state.last_decay_tick, i32),
+            arr(state.anti_team_decay, f32),
+            arr(state.virus_eaten_ticks, i32), arr(state.virus_eaten_ptr, i32),
+            arr(state.food_eaten, i32), arr(state.highest_mass, i32),
+            arr(state.cells_eaten, i32), arr(state.viruses_eaten, i32),
+            arr(state.cell_pos, f32), arr(state.cell_vel, f32),
+            arr(state.cell_split_vel, f32), arr(state.cell_mass, i32),
+            arr(state.cell_alive, u8), arr(state.cell_id, i32),
+            arr(state.cell_recombine_at, i32),
+            int(state.next_cell_id),
+            arr(ppos, f32), arr(palive, u8),
+            arr(state.virus_pos, f32), arr(state.virus_vel, f32),
+            arr(state.virus_mass, i32), arr(state.virus_hits, i32),
+            arr(state.virus_alive, u8),
+            arr(state.food_pos, f32), arr(state.food_vel, f32),
+            arr(state.food_alive, u8), int(state.food_next),
+            int(state.ticks), int(state.seed),
+            arr(state.dones, u8), int(state.main_respawned)]
+        ctype = {f32: ctypes.c_float, i32: ctypes.c_int, u8: ctypes.c_uint8}
+        args = [_ptr(b, ctype[b.dtype.type]) if isinstance(b, np.ndarray)
+                else b for b in bufs]
+        self._lib.oracle_set_state(self._h, *args)
 
     def get_state(self) -> dict:
         """Export the full state as numpy arrays shaped like GameState."""

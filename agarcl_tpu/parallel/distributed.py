@@ -1,11 +1,12 @@
 """Multi-host bring-up helpers.
 
 The reference has no multi-process story (its server is a stub,
-agario/server/main.cpp:1-9). TPU-native scale-out is standard JAX SPMD: every
+agario/server/main.cpp:1-9). Scale-out here is standard JAX SPMD: every
 host calls `initialize()` (which wraps jax.distributed.initialize), builds
 the same global mesh over jax.devices(), and runs the same ShardedVecEnv
-program; DCN is used only by the JAX runtime for coordination, per-step data
-stays on each host's chips (no collectives in the env loop).
+program. The network between hosts carries only the JAX runtime's
+coordination; per-step data stays on each host's devices (the env loop has
+no collectives).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Multi-chip / multi-host scaling: env batch sharded over a 1-D device mesh.
 
 The reference has no distributed system at all (SURVEY §2 parallelism
-inventory: server is a stub, client networking commented out). The TPU-native
-scaling story is straightforward SPMD: N lockstep envs shard along an 'envs'
-mesh axis with `shard_map`; each device simulates its slice independently
-(zero per-step collectives — lockstep envs are embarrassingly parallel), and
-reductions for eval statistics ride ICI via `psum` only when requested.
+inventory: server is a stub, client networking commented out). Scaling here is
+plain SPMD: N lockstep envs shard along an 'envs' mesh axis and each device
+simulates its slice independently. The step has no collective at all
+(lockstep envs are embarrassingly parallel); only a reduction the caller asks
+for, such as `mean_reward`, crosses devices.
 
 Multi-host: construct the mesh over `jax.devices()` after
 `jax.distributed.initialize()`; the same code runs unchanged — host-local
@@ -41,14 +41,7 @@ class ShardedVecEnv:
     """
 
     def __init__(self, cfg: EnvConfig, num_envs: int, mesh: Mesh,
-                 obs_type: str = "ram", obs_config=None,
-                 backend: str = "xla", interpret: bool = False,
-                 block_envs: int = 128):
-        """backend="fused" runs each shard's slice through the fused Pallas
-        step under shard_map (lockstep envs shard embarrassingly, so the
-        kernel stays single-device and XLA inserts no collectives);
-        backend="xla" lets the SPMD partitioner split the vmapped op-graph
-        step. interpret=True is the CPU-mesh test mode for the fused path."""
+                 obs_type: str = "ram", obs_config=None):
         n_dev = mesh.devices.size
         assert num_envs % n_dev == 0, (num_envs, n_dev)
         self.cfg = cfg
@@ -63,30 +56,10 @@ class ShardedVecEnv:
         def _reset_batch(seeds):
             return jax.vmap(functools.partial(env_reset, cfg))(seeds)
 
-        if backend == "fused":
-            from agarcl_tpu.ops.fused_step import fused_env_step
-            from agarcl_tpu.ops.fused_tick import supports
-            assert supports(cfg), "fused backend requires num_players <= 9"
-
-            def _step_shard(states, actions):
-                out = fused_env_step(cfg, states, actions, obs_fn=frame_fn,
-                                     num_frames=num_frames,
-                                     block_envs=block_envs,
-                                     interpret=interpret)
-                if frame_fn is None:
-                    s, obs, r, d = out
-                    return s, r, d
-                return out
-
-            _step_batch = jax.shard_map(
-                _step_shard, mesh=mesh,
-                in_specs=(P("envs"), P("envs")),
-                out_specs=P("envs"), check_vma=False)
-        else:
-            def _step_batch(states, actions):
-                return jax.vmap(
-                    functools.partial(env_step, cfg, obs_fn=frame_fn,
-                                      num_frames=num_frames))(states, actions)
+        def _step_batch(states, actions):
+            return jax.vmap(
+                functools.partial(env_step, cfg, obs_fn=frame_fn,
+                                  num_frames=num_frames))(states, actions)
 
         self._reset = jax.jit(_reset_batch,
                               in_shardings=(env_sharding,),
@@ -114,5 +87,5 @@ class ShardedVecEnv:
         return out
 
     def mean_reward(self, rewards):
-        """Cross-shard mean via a collective (rides ICI)."""
+        """Mean over all envs; XLA inserts the cross-device reduction."""
         return jnp.mean(rewards)

@@ -6,8 +6,8 @@ SPEC.md pin D2 replaces all of them with this single stateless hash so every
 random draw is a pure function of (seed, stream, tick, slot, axis).
 
 The mix is the public-domain `lowbias32` finalizer applied to a running
-xor/multiply accumulation of the counters. It is cheap on the TPU VPU (a few
-uint32 ops, fully vectorized) and ~10 lines of C++ in the oracle.
+xor/multiply accumulation of the counters. It is a few elementwise uint32
+ops, fully vectorized on any backend, and ~10 lines of C++ in the oracle.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def uniform_q(nq, seed, stream, tick, slot, axis=0):
     multiply-shift: (u24 * nq) >> 24, computed in two 12-bit halves
     (floor(floor(x/2^12)/2^12) == floor(x/2^24)) so nothing overflows
     int32 for nq <= 2^15. Unlike `floor(uniform_range(...) * scale)`,
-    this is bit-exact across XLA programs / Mosaic / C++ — float
+    this is bit-exact across XLA programs, backends and C++ — float
     mul+add chains can be FMA-contracted differently per program, and a
     1-ulp difference amplifies to a full cell through floor. Used for
     the quantized pellet-key spawn coordinates (state.py)."""

@@ -1,21 +1,43 @@
 """Tracing / profiling utilities (SURVEY §5: the reference has no internal
-tracing — its harness is google-benchmark + ad-hoc SPS prints; the TPU-native
+tracing — its harness is google-benchmark + ad-hoc SPS prints; the JAX
 equivalents are jax.profiler traces and per-step device-time metrics).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import shutil
+import subprocess
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import jax
 
 
+def gpu_name_and_power_limit() -> Optional[str]:
+    """The card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
+    them (one line per card), or None where there is no nvidia-smi. A card
+    set below its maximum power runs slower under load, so every device
+    number is reported with this line."""
+    if shutil.which("nvidia-smi") is None:
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+_DEFAULT_TRACE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".traces")
+
+
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/agarcl_trace"):
+def trace(log_dir: str = _DEFAULT_TRACE_DIR):
     """Capture a jax.profiler trace of the enclosed block (view with
-    TensorBoard or Perfetto)."""
+    TensorBoard or Perfetto); by default into <repo>/.traces."""
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

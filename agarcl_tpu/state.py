@@ -13,10 +13,11 @@ arithmetic (SPEC Q13).
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from agarcl_tpu import constants as C
 from agarcl_tpu.config import EnvConfig
@@ -29,8 +30,8 @@ from agarcl_tpu.config import EnvConfig
 # two scale factors cancel to within < 2^-22 relative, verified for all q),
 # so keys pass through ticks unchanged unless the pellet is eaten/respawned.
 # Max quantization error is W/65536 (~0.005 world units at arena 350) — far
-# below the pellet radius (~0.56). All three implementations (XLA tick,
-# Pallas kernel, C++ oracle) quantize at spawn with the same f32 ops.
+# below the pellet radius (~0.56). Both implementations (XLA tick and C++
+# oracle) quantize at spawn with the same f32 ops.
 
 PELLET_QBITS = 15
 PELLET_Q = 1 << PELLET_QBITS           # 32768
@@ -70,7 +71,7 @@ def decode_pellet_xy(cfg: EnvConfig, key):
     return jnp.stack([x, y], axis=-1), key >= 0
 
 
-@struct.dataclass
+@dataclasses.dataclass(frozen=True)
 class GameState:
     # --- players (P = num_agents + bots; slot index IS the pid: SPEC D1) ---
     target: jax.Array          # (P, 2) f32 — movement target (Player.hpp:28)
@@ -100,11 +101,9 @@ class GameState:
     # --- pellets (Np,) ---
     # One int32 key per slot replaces (pos f32x2, alive bool): pellets never
     # move, so the whole pellet state is [qx:15][qy:15] arena-normalized
-    # quantized coordinates (SPEC "Pellet position quantization"), dead = -1.
-    # This cuts the fused step's per-call pellet HBM round trip from ~81 MB
-    # to 16 MB at 8192 envs x 500 pellets and lets the obs kernel extract a
-    # neighbor's full position in one masked int sum. Decode with
-    # pellet_xy_alive(cfg) / decode_pellet_xy; encode with encode_pellet_key.
+    # quantized coordinates (SPEC "Pellet position quantization"), dead = -1:
+    # 4 bytes per pellet instead of 9. Decode with pellet_xy_alive(cfg) /
+    # decode_pellet_xy; encode with encode_pellet_key.
     pellet_key: jax.Array      # (Np,) i32
 
     # --- viruses (Nv,) ---
@@ -125,6 +124,10 @@ class GameState:
     seed: jax.Array            # () u32 — RNG stream seed (SPEC D2)
     dones: jax.Array           # (A,) bool — per-agent done flags
     main_respawned: jax.Array  # () bool — screen-env respawn flag
+
+    def replace(self, **changes) -> "GameState":
+        """A copy with the given fields swapped (the state is immutable)."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def num_players(self) -> int:
@@ -148,13 +151,23 @@ class GameState:
     def player_centroid(self) -> jax.Array:
         """(P, 2) f32 — mass-weighted cell centroid (Player.hpp:102-114).
 
-        Dead players get (0, 0) (reference would divide by zero; callers only
-        use centroids of live players).
+        Pinned form (SPEC "Backends"): anchor + sum((pos - anchor) * m) /
+        sum(m), the anchor being the player's first live cell slot. A
+        one-cell player's centroid is then its cell's position exactly;
+        sum(pos * m) / sum(m) rounds, and the GPU's division rounds
+        differently from the CPU's. oracle.cpp::centroid mirrors it.
+        Dead players get (0, 0) (reference would divide by zero; callers
+        only use centroids of live players).
         """
-        w = jnp.where(self.cell_alive, self.cell_mass, 0).astype(jnp.float32)
+        alive = self.cell_alive
+        w = jnp.where(alive, self.cell_mass, 0).astype(jnp.float32)
         total = jnp.sum(w, axis=-1, keepdims=True)
-        num = jnp.sum(self.cell_pos * w[..., None], axis=-2)
-        return num / jnp.maximum(total, 1.0)
+        first = jnp.argmax(alive, axis=-1)[..., None, None]
+        anchor = jnp.take_along_axis(self.cell_pos, first, axis=-2)[..., 0, :]
+        off = jnp.sum((self.cell_pos - anchor[..., None, :]) * w[..., None],
+                      axis=-2)
+        c = anchor + off / jnp.maximum(total, 1.0)
+        return jnp.where(jnp.any(alive, axis=-1)[..., None], c, 0.0)
 
     def cell_rank(self) -> jax.Array:
         """(P, Cc) i32 — rank of each live cell among its player's cells by id.
@@ -176,6 +189,11 @@ class GameState:
     def pellet_alive(self) -> jax.Array:
         """(..., Np) bool — alive mask derived from the key sign."""
         return self.pellet_key >= 0
+
+
+jax.tree_util.register_dataclass(
+    GameState, data_fields=[f.name for f in dataclasses.fields(GameState)],
+    meta_fields=[])
 
 
 def zero_state(cfg: EnvConfig) -> GameState:

@@ -1,14 +1,14 @@
-"""Bot evaluator — the TPU counterpart of the reference's ThreadPool-based
+"""Bot evaluator — the vmapped counterpart of the reference's ThreadPool-based
 tool (/root/reference/agario/bots/benchmark.cpp:134-271: BotEvaluator plays
 many headless games in parallel on 4 CPU threads and aggregates per-bot
 avg/max/min mass).
 
 Here the fan-out is a vmap: thousands of lockstep mode-0 games run on one
-chip; the report aggregates final masses per bot type across all games.
+device; the report aggregates final masses per bot type across all games.
 
 Usage:
-  AGARCL_PLATFORM=cpu python bench/bot_evaluator.py --games 64 --steps 100
-  python bench/bot_evaluator.py --games 2048 --steps 250        # on TPU
+  JAX_PLATFORMS=cpu python bench/bot_evaluator.py --games 64 --steps 100
+  python bench/bot_evaluator.py --games 2048 --steps 250        # on the GPU
 """
 
 import argparse

@@ -1,9 +1,9 @@
 """Observation-path throughput: ram / grid / screen with obs CONSUMED.
 
 Every timing loop blocks on the observation tensor, so the observation
-pipeline cannot be dead-coded by XLA (see BASELINE.md: discarding obs from
-a jitted loop silently removes the whole obs computation and overstates
-throughput). These are the honest numbers behind the BASELINE.md table.
+pipeline cannot be dead-coded by XLA (discarding obs from a jitted loop
+silently removes the whole obs computation and overstates throughput).
+Rates are of the default JAX device; run on the card for device numbers.
 
 Usage: python bench/obs_bench.py [ram|grid|screen|all]
 """
@@ -49,7 +49,7 @@ def _run(env, n, steps_per_call, calls):
 
 
 def bench_ram():
-    env = VecEnv(CFG, 8192, obs_type="ram", backend="fused")
+    env = VecEnv(CFG, 8192, obs_type="ram")
     print(f"ram 8192 envs, 10-step chained: "
           f"{_run(env, 8192, 10, 4):,.0f} env-steps/s")
 
@@ -58,7 +58,7 @@ def bench_grid():
     from agarcl_tpu.obs.grid import GridObsConfig
     for G, n in ((64, 4096), (128, 2048)):
         env = VecEnv(CFG, n, obs_type="grid",
-                     obs_config=GridObsConfig(grid_size=G), backend="fused")
+                     obs_config=GridObsConfig(grid_size=G))
         print(f"grid {G}x{G} {n} envs, 5-step chained: "
               f"{_run(env, n, 5, 8):,.0f} env-steps/s")
 
@@ -70,8 +70,7 @@ def bench_screen():
     for S, n in ((84, 2048), (128, 256)):
         env = VecEnv(cfg, n, obs_type="screen",
                      obs_config=ScreenObsConfig(screen_len=S,
-                                                agent_view=True),
-                     backend="fused")
+                                                agent_view=True))
         print(f"screen {S}x{S} {n} envs, 5-step chained: "
               f"{_run(env, n, 5, 8):,.0f} env-steps/s")
 

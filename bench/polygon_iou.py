@@ -7,7 +7,7 @@ ScreenObsConfig.polygon_edges=True to emulate the fans. This script measures
 the per-class pixel IoU between the two modes over random states, giving the
 quantified waiver SPEC.md cites for the default-circle mode.
 
-Usage: AGARCL_PLATFORM=cpu python bench/polygon_iou.py [screen_len] [episodes]
+Usage: JAX_PLATFORMS=cpu python bench/polygon_iou.py [screen_len] [episodes]
 Prints one line per class plus a JSON summary.
 """
 

@@ -1,14 +1,14 @@
 """Scaling-efficiency benchmark: env-steps/s at 1..N devices.
 
-The BASELINE target is >= 85% efficiency from 1 host to N>=2 hosts. Lockstep
-envs are embarrassingly parallel (no per-step collectives), so efficiency is
-gated only by per-device dispatch overhead and the smallest per-device batch.
+Lockstep envs are embarrassingly parallel (no per-step collectives), so
+efficiency is gated only by per-device dispatch overhead and the smallest
+per-device batch.
 
-On a multi-chip/multi-host slice this runs as-is over the real mesh (call
-jax.distributed.initialize() first on each host). Without TPU hardware, run
-on the virtual CPU platform:
+On several devices or hosts this runs as-is over the real mesh (call
+jax.distributed.initialize() first on each host). Without them, run on the
+virtual CPU platform:
 
-  AGARCL_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python bench/scaling_bench.py
 
 Prints one JSON line per device count plus a final efficiency summary.

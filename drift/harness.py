@@ -187,9 +187,9 @@ def run_reference(seeds, steps, policy="script", **cfg):
 
 def run_ours(seeds, steps, policy="script", arena=100, num_pellets=200,
              num_viruses=2, mode=4, num_agents=1, num_bots=0):
-    """Per-seed metric trajectories from agarcl_tpu (vmapped XLA on CPU)."""
+    """Per-seed metric trajectories from agarcl_tpu (vmapped XLA on the
+    default JAX device; JAX_PLATFORMS=cpu selects the CPU)."""
     import jax
-    jax.config.update("jax_platforms", "cpu")
     import functools
     import jax.numpy as jnp
     from agarcl_tpu import EnvConfig, env_reset

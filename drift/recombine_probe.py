@@ -36,7 +36,6 @@ def ref_merge_ticks(max_steps=3000, sleep=0.0):
 
 def ours_merge_ticks(max_steps=3000):
     import jax
-    jax.config.update("jax_platforms", "cpu")
     import functools
     import jax.numpy as jnp
     from agarcl_tpu import EnvConfig, env_reset

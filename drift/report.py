@@ -84,8 +84,8 @@ SCENARIOS = [
      dict(mode=4, num_pellets=200, num_viruses=2, arena=100),
      "same-tick food edibility (tick.py:24-26 vs Engine.hpp:1011-1025)",
      None),
-    # round 5: the large-roster tier (fused cross-eat chunking) gets its
-    # own behavioral row — full game vs the reference's 4-bot roster
+    # the large-roster tier gets its own behavioral row — full game vs
+    # the reference's 4-bot roster
     ("mode-0 full game vs 4 bots, pellet chase", "chase",
      dict(mode=0, num_pellets=200, num_viruses=2, arena=100, num_bots=4),
      "5-player roster: mode-0 respawn_all + all four bot types (M3, Q5)",

@@ -1,13 +1,13 @@
 """End-to-end RL training demo: PPO on the ram-obs pellet task, fully jitted.
 
 The reference is only the environment half of an RL stack (SURVEY: "no neural
-network, no learner"); this example shows the TPU-native point of the
-rebuild — the env batch, the policy network, and the PPO update live in ONE
-jit-compiled program per iteration, so thousands of envs feed the learner
-with zero host round-trips.
+network, no learner"); this example shows the point of the rebuild — the
+env batch, the policy network, and the PPO update live in ONE jit-compiled
+program per iteration, so thousands of envs feed the learner with zero host
+round-trips.
 
-Run (CPU): AGARCL_PLATFORM=cpu python examples/train_ppo.py --envs 64 --iters 30
-Run (TPU): python examples/train_ppo.py --envs 4096 --iters 200
+Run (CPU): JAX_PLATFORMS=cpu python examples/train_ppo.py --envs 64 --iters 30
+Run (GPU): python examples/train_ppo.py --envs 4096 --iters 200
 """
 
 import argparse
@@ -24,6 +24,7 @@ import numpy as np
 import optax
 
 from agarcl_tpu import EnvConfig, env_reset, env_step
+from agarcl_tpu.compile_cache import enable_compile_cache
 from agarcl_tpu.obs.ram import RamObsConfig, ram_frame, ram_size
 
 
@@ -66,20 +67,7 @@ def make_train(cfg, ocfg, num_envs, rollout_len, lr, clip_eps=0.2,
         logp = -jnp.sum((act - mean) ** 2, axis=-1) / (2 * 0.09)
         return act, logp, value
 
-    # ride the fused Pallas tick when it applies (TPU): the whole
-    # rollout+update program then steps the env batch at the bench.py
-    # rate instead of the vmapped op-graph tick's
-    from agarcl_tpu.ops.fused_tick import supports as _fused_ok
-    if _fused_ok(cfg) and jax.default_backend() != "cpu":
-        from agarcl_tpu.ops.fused_step import fused_env_step
-
-        def step_batch(states, actions):
-            return fused_env_step(cfg, states, actions, obs_fn=frame_fn)
-    else:
-        step_one = functools.partial(env_step, cfg, obs_fn=frame_fn)
-
-        def step_batch(states, actions):
-            return jax.vmap(step_one)(states, actions)
+    step_batch = jax.vmap(functools.partial(env_step, cfg, obs_fn=frame_fn))
 
     def rollout(params, states, obs, key):
         def body(carry, _):
@@ -160,6 +148,7 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    enable_compile_cache()
 
     # dense-pellet task ("trivial" difficulty shape): strong reward signal
     cfg = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=60,

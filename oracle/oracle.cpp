@@ -171,6 +171,8 @@ struct Config {
   int mass_decay, squared_pellets, pellet_regen, agent_mass;
   int respawn_all, done_on_death, done_on_max_mass;
   std::vector<int> bot_types;    // per player: 0 agent, 1..4 bots
+  // screen-env semantics (env.py env_step respawn_main_during_obs)
+  int respawn_main_during_obs = 0;
 };
 
 struct State {
@@ -232,17 +234,23 @@ bool player_alive(const Oracle &o, int p) {
     if (o.st.calive[p][c]) return true;
   return false;
 }
+// anchor + sum((pos - anchor) * m) / sum(m), anchor = first live slot
+// (state.player_centroid's pinned form: exact for one-cell players)
 Vec2 centroid(const Oracle &o, int p) {
+  int first = -1;
+  for (int c = 0; c < o.cfg.max_cells && first < 0; c++)
+    if (o.st.calive[p][c]) first = c;
+  if (first < 0) return {0.0f, 0.0f};
+  Vec2 a = o.st.cpos[p][first];
   double sx = 0, sy = 0, sm = 0;
   for (int c = 0; c < o.cfg.max_cells; c++)
     if (o.st.calive[p][c]) {
-      // match the f32 accumulation of state.player_centroid
-      sx += double(o.st.cpos[p][c].x) * o.st.cmass[p][c];
-      sy += double(o.st.cpos[p][c].y) * o.st.cmass[p][c];
+      sx += double(o.st.cpos[p][c].x - a.x) * o.st.cmass[p][c];
+      sy += double(o.st.cpos[p][c].y - a.y) * o.st.cmass[p][c];
       sm += o.st.cmass[p][c];
     }
   if (sm < 1.0) sm = 1.0;
-  return {float(sx / sm), float(sy / sm)};
+  return {a.x + float(sx) / float(sm), a.y + float(sy) / float(sm)};
 }
 
 void boundary_clamp(const Oracle &o, Vec2 &pos, float rad) {
@@ -1033,6 +1041,7 @@ void respawn_player(Oracle &o, int p, uint32_t tick_key) {
   o.st.csvel[p][0] = {0, 0};
   o.st.cmass[p][0] = mass0;
   o.st.calive[p][0] = true;
+  o.st.cid[p][0] = o.st.next_cell_id++;
   o.st.crecomb[p][0] = 0;
   o.st.split_cd[p] = 0; o.st.feed_cd[p] = 0;
   o.st.elapsed[p] = 0; o.st.last_decay[p] = 0;
@@ -1166,6 +1175,10 @@ void oracle_reset(void *h, uint32_t seed) {
 
 void oracle_tick(void *h) { engine_tick(*static_cast<Oracle *>(h)); }
 
+void oracle_set_respawn_main(void *h, int on) {
+  static_cast<Oracle *>(h)->cfg.respawn_main_during_obs = on;
+}
+
 // env_step: actions is (A,3) floats; rewards out (A,); dones out (A,)
 void oracle_step(void *h, const float *actions, double *rewards,
                  uint8_t *dones) {
@@ -1185,6 +1198,10 @@ void oracle_step(void *h, const float *actions, double *rewards,
 
   for (int t = 0; t < o.cfg.ticks_per_step; t++) engine_tick(o);
 
+  if (o.cfg.respawn_main_during_obs && !player_alive(o, 0)) {
+    respawn_player(o, 0, uint32_t(o.st.ticks));
+    o.st.main_respawned = true;
+  }
   if (o.cfg.respawn_all) {
     for (int p = 0; p < o.cfg.num_players; p++)
       if (!player_alive(o, p))
@@ -1257,6 +1274,74 @@ void oracle_get_state(void *h, float *target, int *action, int *split_cd,
     falive[n] = o.st.falive[n];
   }
   *ticks = o.st.ticks;
+}
+
+// load a full state from caller buffers (same layout as oracle_get_state,
+// plus the fields that export leaves out), so tests can start both engines
+// from one crafted state
+void oracle_set_state(void *h, const float *target, const int *action,
+                      const int *split_cd, const int *feed_cd,
+                      const int *elapsed, const int *last_decay,
+                      const float *anti_team, const int *vticks,
+                      const int *vptr, const int *food_eaten,
+                      const int *highest_mass, const int *cells_eaten,
+                      const int *viruses_eaten, const float *cpos,
+                      const float *cvel, const float *csvel, const int *cmass,
+                      const uint8_t *calive, const int *cid,
+                      const int *crecomb, int next_cell_id, const float *ppos,
+                      const uint8_t *palive, const float *vpos,
+                      const float *vvel, const int *vmass, const int *vhits,
+                      const uint8_t *valive, const float *fpos,
+                      const float *fvel, const uint8_t *falive, int food_next,
+                      int64_t ticks, uint32_t seed, const uint8_t *dones,
+                      int main_respawned) {
+  Oracle &o = *static_cast<Oracle *>(h);
+  State &s = o.st;
+  int P = o.cfg.num_players, Cc = o.cfg.max_cells, K = o.cfg.vticks_cap;
+  for (int p = 0; p < P; p++) {
+    s.target[p] = {target[p * 2], target[p * 2 + 1]};
+    s.action[p] = action[p];
+    s.split_cd[p] = split_cd[p]; s.feed_cd[p] = feed_cd[p];
+    s.elapsed[p] = elapsed[p]; s.last_decay[p] = last_decay[p];
+    s.anti_team[p] = anti_team[p];
+    for (int k = 0; k < K; k++) s.vticks[p][k] = vticks[p * K + k];
+    s.vptr[p] = vptr[p];
+    s.food_eaten[p] = food_eaten[p];
+    s.highest_mass[p] = highest_mass[p];
+    s.cells_eaten[p] = cells_eaten[p];
+    s.viruses_eaten[p] = viruses_eaten[p];
+    for (int c = 0; c < Cc; c++) {
+      int i = p * Cc + c;
+      s.cpos[p][c] = {cpos[i * 2], cpos[i * 2 + 1]};
+      s.cvel[p][c] = {cvel[i * 2], cvel[i * 2 + 1]};
+      s.csvel[p][c] = {csvel[i * 2], csvel[i * 2 + 1]};
+      s.cmass[p][c] = cmass[i];
+      s.calive[p][c] = calive[i];
+      s.cid[p][c] = cid[i];
+      s.crecomb[p][c] = crecomb[i];
+    }
+  }
+  s.next_cell_id = next_cell_id;
+  for (int n = 0; n < o.cfg.pellet_cap; n++) {
+    s.ppos[n] = {ppos[n * 2], ppos[n * 2 + 1]};
+    s.palive[n] = palive[n];
+  }
+  for (int v = 0; v < o.cfg.virus_cap; v++) {
+    s.vpos[v] = {vpos[v * 2], vpos[v * 2 + 1]};
+    s.vvel[v] = {vvel[v * 2], vvel[v * 2 + 1]};
+    s.vmass[v] = vmass[v]; s.vhits[v] = vhits[v];
+    s.valive[v] = valive[v];
+  }
+  for (int n = 0; n < o.cfg.food_cap; n++) {
+    s.fpos[n] = {fpos[n * 2], fpos[n * 2 + 1]};
+    s.fvel[n] = {fvel[n * 2], fvel[n * 2 + 1]};
+    s.falive[n] = falive[n];
+  }
+  s.food_next = food_next;
+  s.ticks = ticks;
+  s.seed = seed;
+  for (int a = 0; a < o.cfg.num_agents; a++) s.dones[a] = dones[a];
+  s.main_respawned = main_respawned;
 }
 
 }  // extern "C"

@@ -10,11 +10,9 @@ import os
 
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=2")
-os.environ["AGARCL_PLATFORM"] = "cpu"
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 
 def main():
@@ -42,9 +40,7 @@ def main():
     cfg = EnvConfig(num_agents=1, ticks_per_step=2, arena_size=80,
                     num_pellets=20, num_viruses=2, num_bots=0, mode=4)
     mesh = make_env_mesh()
-    backend = os.environ.get("DW_BACKEND", "xla")
-    env = ShardedVecEnv(cfg, 16, mesh, obs_type="ram", backend=backend,
-                        interpret=(backend == "fused"))
+    env = ShardedVecEnv(cfg, 16, mesh, obs_type="ram")
     states = env.reset(3)
     acts = np.tile(np.asarray([[0.6, -0.4, 0.0]], np.float32), (16, 1, 1))
     for _ in range(3):

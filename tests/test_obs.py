@@ -243,33 +243,250 @@ def test_screen_multi_agent():
     assert not np.array_equal(f[0], f[1])
 
 
-def test_gobigger_fused_step_parity():
-    """gobigger structured obs through the fused step (interpret) == the
-    vmapped XLA env_step, leaf for leaf — the fused backend's route for
-    the 3.5M steps/s BASELINE row (bench.py --obs gobigger)."""
+
+
+# ---------------------------------------------------------------------------
+# grid_frame and ram_frame against scalar numpy references
+# ---------------------------------------------------------------------------
+
+def numpy_grid(cfg, ocfg, state):
+    """(A, C, G, G) int64 grid frame by per-entity scatter
+    (GridEnvironment.hpp:240-279: trunc binning; add / max /
+    min-with-0-for-empty per channel), binning the f32 offset
+    2G * (pos - centroid) exactly in float64. Unclipped."""
+    f32 = np.float32
+    G = ocfg.grid_size
+    A = cfg.num_agents
+    centroid = np.asarray(state.player_centroid(), f32)
+    pmass = np.asarray(state.player_mass()).astype(f32)
+    P, Cc = np.asarray(state.cell_mass).shape
+    cpos = np.asarray(state.cell_pos, f32).reshape(P * Cc, 2)
+    cmass = np.asarray(state.cell_mass).reshape(P * Cc).astype(np.int64)
+    calive = np.asarray(state.cell_alive).reshape(P * Cc)
+    owner = np.repeat(np.arange(P), Cc)
+    ppos, palive = (np.asarray(x) for x in state.pellet_xy_alive(cfg))
+    vpos = np.asarray(state.virus_pos, f32)
+    valive = np.asarray(state.virus_alive)
+    vmass = np.asarray(state.virus_mass).astype(np.int64)
+    out = []
+    for a in range(A):
+        view = f32(np.clip(f32(2.0) * pmass[a], f32(100.0), f32(300.0)))
+        c = centroid[a]
+
+        def scatter(pos, alive, vals, op):
+            grid = np.zeros((G, G), np.int64)
+            hit = np.zeros((G, G), bool)
+            for i in np.flatnonzero(alive):
+                s = f32(2 * G) * (pos[i].astype(f32) - c)
+                g = np.trunc(s.astype(np.float64) / (2.0 * float(view))
+                             + G / 2.0)
+                gx, gy = int(g[0]), int(g[1])
+                if not (0 <= gx < G and 0 <= gy < G):
+                    continue
+                v = vals[i]
+                if op == "add":
+                    grid[gx, gy] += v
+                elif not hit[gx, gy]:
+                    grid[gx, gy] = v
+                else:
+                    grid[gx, gy] = (max if op == "max" else min)(
+                        grid[gx, gy], v)
+                hit[gx, gy] = True
+            return grid
+
+        ij = np.arange(G, dtype=f32)
+        off = (ij - f32(G / 2.0)) * view * f32(1.0 / G)
+        wx, wy = c[0] + off, c[1] + off
+        inb = (((wx >= 0) & (wx < cfg.arena_width))[:, None]
+               & ((wy >= 0) & (wy < cfg.arena_height))[None, :])
+        chans = [np.where(inb, 0, -1)]
+        if ocfg.observe_pellets:
+            count = scatter(ppos, palive, np.ones(len(ppos), np.int64), "add")
+            chans += [np.minimum(count, 1), count]
+        if ocfg.observe_viruses:
+            chans += [scatter(vpos, valive, vmass, "max"),
+                      scatter(vpos, valive, vmass, "add")]
+        if ocfg.observe_cells:
+            chans.append(scatter(cpos, calive & (owner == a), cmass, "add"))
+        if ocfg.observe_others:
+            others = calive & (owner != a)
+            chans += [scatter(cpos, others, cmass, "min"),
+                      scatter(cpos, others, cmass, "max")]
+        out.append(np.stack(chans))
+    return np.stack(out)
+
+
+def clipped(frame, dtype):
+    info = np.iinfo(dtype)
+    return np.clip(frame, info.min, info.max).astype(dtype)
+
+
+def played(cfg, seed, steps):
+    from tests.helpers import step_fn
+    s = reset(cfg, seed)
+    rng = np.random.default_rng(seed)
+    for t in range(steps):
+        acts = np.zeros((cfg.num_agents, 3), np.float32)
+        acts[:, :2] = rng.uniform(-1, 1, (cfg.num_agents, 2))
+        acts[:, 2] = rng.integers(0, 3, cfg.num_agents)
+        s, _, _ = step_fn(cfg)(s, jnp.asarray(acts))
+    return s
+
+
+SINGLE = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=120,
+                   num_pellets=100, num_viruses=4, num_bots=0, mode=4)
+MULTI = EnvConfig(num_agents=2, ticks_per_step=4, arena_size=120,
+                  num_pellets=60, num_viruses=4, num_bots=1, mode=7)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int16", "int8"])
+@pytest.mark.parametrize("cfg", [SINGLE, MULTI], ids=["single", "multi"])
+def test_grid_frame_matches_numpy(cfg, dtype):
+    """Played states (splits, feeds, a bot) bin-for-bin, per agent, in
+    every output dtype (int16/int8 saturate, never wrap)."""
+    s = played(cfg, 13, 6)
+    ocfg = GridObsConfig(grid_size=32, out_dtype=dtype)
+    got = np.asarray(grid_frame(cfg, ocfg, s))
+    assert got.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, clipped(numpy_grid(cfg, ocfg, s),
+                                               dtype))
+    if cfg.num_agents > 1:          # each agent has its own view
+        assert not np.array_equal(got[0], got[1])
+
+
+def test_grid_frame_stacking_matches_numpy():
+    """num_frames=2 through env_step: the last two ticks each give a
+    frame (GridEnvironment.hpp:425-431)."""
     import functools
 
     import jax
-    import jax.numpy as jnp
 
-    from agarcl_tpu.env import env_reset, env_step
-    from agarcl_tpu.ops.fused_step import fused_env_step
-    from agarcl_tpu.vec import make_obs_fn
+    from agarcl_tpu import apply_actions, env_step
+    from tests.helpers import tick_fn
+    ocfg = GridObsConfig(grid_size=32, num_frames=2, out_dtype="int32")
+    s0 = played(SINGLE, 9, 2)
+    acts = jnp.asarray([[0.7, -0.2, 0.0]], jnp.float32)
+    _, obs, _, _ = jax.jit(functools.partial(
+        env_step, SINGLE, obs_fn=functools.partial(grid_frame, SINGLE, ocfg),
+        num_frames=2))(s0, acts)
+    s = apply_actions(SINGLE, s0, acts)
+    frames = []
+    for _ in range(SINGLE.ticks_per_step):
+        s = tick_fn(SINGLE)(s)
+        frames.append(numpy_grid(SINGLE, ocfg, s))
+    obs = np.asarray(obs)
+    assert obs.shape[0] == 2
+    np.testing.assert_array_equal(obs, np.stack(frames[-2:]))
+    assert (obs[0] != obs[1]).any()
 
-    fn, nf = make_obs_fn(BASE, "gobigger", GoBiggerObsConfig())
-    states = jax.vmap(functools.partial(env_reset, BASE))(
-        jnp.arange(4, dtype=jnp.uint32) + 17)
-    acts = jnp.tile(jnp.asarray([[0.6, -0.4, 0.0]], jnp.float32), (4, 1, 1))
-    s_f, obs_f, r_f, d_f = fused_env_step(BASE, states, acts, obs_fn=fn,
-                                          num_frames=nf, block_envs=4,
-                                          interpret=True)
-    step_x = jax.jit(jax.vmap(functools.partial(
-        env_step, BASE, obs_fn=fn, num_frames=nf)))
-    s_x, obs_x, r_x, d_x = step_x(states, acts)
-    for k in obs_f:
-        # atol 1e-4: the fused tick's centroid sums reduce in a different
-        # f32 order than the vmapped XLA tick's
-        np.testing.assert_allclose(np.asarray(obs_f[k]),
-                                   np.asarray(obs_x[k]), atol=1e-4,
-                                   err_msg=k)
-    np.testing.assert_allclose(np.asarray(r_f), np.asarray(r_x), atol=1e-4)
+
+def test_grid_bin_collisions_match_numpy():
+    """Two viruses, and two of the bot's cells, forced into one bin:
+    max != sum and min != max where a bin holds two entities."""
+    s = reset(MULTI, 3)
+    c = s.player_centroid()[0]
+    s = s.replace(
+        virus_pos=s.virus_pos.at[0].set(c + 10.0).at[1].set(c + 10.2),
+        virus_alive=s.virus_alive.at[:2].set(True),
+        virus_mass=s.virus_mass.at[0].set(120).at[1].set(180),
+        cell_pos=s.cell_pos.at[2, 0].set(c - 8.0).at[2, 1].set(c - 8.3),
+        cell_alive=s.cell_alive.at[2, :2].set(True),
+        cell_mass=s.cell_mass.at[2, 0].set(40).at[2, 1].set(90))
+    ocfg = GridObsConfig(grid_size=32, out_dtype="int32")
+    got = np.asarray(grid_frame(MULTI, ocfg, s))
+    np.testing.assert_array_equal(got, numpy_grid(MULTI, ocfg, s))
+    assert (got[0, 3] != got[0, 4]).any()          # virus max vs sum
+    assert (got[0, -2] != got[0, -1]).any()        # others min vs max
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int8"])
+def test_grid_saturation_matches_numpy(dtype):
+    """Two co-binned 20k-mass cells: the own-mass bin exceeds int16 and
+    clamps at the dtype's max."""
+    s = reset(SINGLE, 13)
+    c = s.player_centroid()[0]
+    s = s.replace(
+        cell_pos=s.cell_pos.at[0, 0].set(c + 5.0).at[0, 1].set(c + 5.0),
+        cell_alive=s.cell_alive.at[0, 1].set(True),
+        cell_mass=s.cell_mass.at[0, 0].set(20000).at[0, 1].set(20000))
+    ocfg = GridObsConfig(grid_size=32, out_dtype=dtype)
+    ref = numpy_grid(SINGLE, ocfg, s)
+    got = np.asarray(grid_frame(SINGLE, ocfg, s))
+    np.testing.assert_array_equal(got, clipped(ref, dtype))
+    assert (ref > np.iinfo(dtype).max).any()
+    assert (got == np.iinfo(dtype).max).any()
+
+
+def round_mantissa(x, bits):
+    """f32 rounded to `bits` explicit mantissa bits, to nearest even."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    drop = 23 - bits
+    lsb = (u >> np.uint32(drop)) & np.uint32(1)
+    u = (u + np.uint32((1 << (drop - 1)) - 1) + lsb) & np.uint32(
+        0xFFFFFFFF ^ ((1 << drop) - 1))
+    return u.view(np.float32)
+
+
+def numpy_ram(cfg, ocfg, state):
+    """(A, ram_size) f32 ram frame: own cells, k nearest pellets and
+    viruses by the packed (squared distance, index) key, all players."""
+    from agarcl_tpu.obs.ram import key_index_bits
+    f32 = np.float32
+    A, P = cfg.num_agents, cfg.num_players
+    centroid = np.asarray(state.player_centroid(), f32)
+    pmass = np.asarray(state.player_mass()).astype(f32)
+    palive = np.asarray(state.player_alive())
+    ppos, pal = (np.asarray(x) for x in state.pellet_xy_alive(cfg))
+    out = []
+    for a in range(A):
+        me = centroid[a]
+        feats = [me / f32([cfg.arena_width, cfg.arena_height]), [pmass[a]]]
+        alive = np.asarray(state.cell_alive[a]).astype(f32)[:, None]
+        rel = (np.asarray(state.cell_pos[a], f32) - me) * alive
+        feats.append(np.concatenate(
+            [rel, np.asarray(state.cell_mass[a], f32)[:, None] * alive,
+             np.asarray(state.cell_vel[a], f32) * alive, alive], 1).ravel())
+
+        def nearest(pos, live, k, extra=None):
+            n = len(pos)
+            rel = pos.astype(f32) - me
+            q = round_mantissa(rel, 11)
+            d2 = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]).astype(f32)
+            b = key_index_bits(n)
+            key = (d2.view(np.int32) & np.int32(-1 << b)) | np.arange(
+                n, dtype=np.int32)
+            key = np.where(live, key, 0x7FFFFFFF)
+            rows = []
+            for i in np.argsort(key, kind="stable")[:k]:
+                ok = f32(key[i] != 0x7FFFFFFF)
+                row = list(rel[i] * ok)
+                if extra is not None:
+                    row.append(f32(extra[i]) * ok)
+                rows.append(row + [ok])
+            return np.asarray(rows, f32).ravel()
+
+        feats.append(nearest(ppos, pal, min(ocfg.num_pellets,
+                                             cfg.pellet_capacity)))
+        feats.append(nearest(np.asarray(state.virus_pos),
+                             np.asarray(state.virus_alive),
+                             min(ocfg.num_viruses, cfg.virus_capacity),
+                             extra=np.asarray(state.virus_mass)))
+        keep = (palive & (np.arange(P) != a)).astype(f32)[:, None]
+        feats.append((np.concatenate(
+            [centroid - me, pmass[:, None], np.ones((P, 1), f32)], 1)
+            * keep).ravel())
+        out.append(np.concatenate([np.asarray(f, f32).ravel()
+                                   for f in feats]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("cfg", [SINGLE, MULTI], ids=["single", "multi"])
+def test_ram_frame_matches_numpy(cfg):
+    """Nearest-k pellets and viruses, own cells and the other-player
+    block after play with splits and eaten pellets."""
+    s = played(cfg, 5, 4)
+    ocfg = RamObsConfig()
+    got = np.asarray(ram_frame(cfg, ocfg, s))
+    assert got.shape == (cfg.num_agents, ram_size(cfg, ocfg))
+    np.testing.assert_allclose(got, numpy_ram(cfg, ocfg, s), rtol=1e-6,
+                               atol=1e-4)

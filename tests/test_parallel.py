@@ -61,38 +61,3 @@ def test_vecenv_autoreset():
     # next step: fresh envs, mass back to spawn size
     states, obs, rewards, dones = env.step(states, acts)
     assert int(states.player_mass().max()) <= 30
-
-
-def test_sharded_fused_backend_matches_unsharded():
-    """ShardedVecEnv(backend='fused', interpret) on the 8-device CPU mesh ==
-    the unsharded fused step: per-shard Pallas kernels under shard_map."""
-    import functools
-
-    from agarcl_tpu.ops.fused_step import fused_env_step
-    from agarcl_tpu.vec import make_obs_fn
-
-    cfg = EnvConfig(num_agents=1, ticks_per_step=2, arena_size=100,
-                    num_pellets=40, num_viruses=2, mode=4)
-    mesh = make_env_mesh()
-    n = 32
-    env = ShardedVecEnv(cfg, n, mesh, obs_type="ram", backend="fused",
-                        interpret=True, block_envs=4)
-    states = env.reset(3)
-    acts = np.tile(np.asarray([[0.4, -0.2, 0.0]], np.float32), (n, 1, 1))
-    s1, obs1, r1, d1 = env.step(states, acts)
-
-    # unsharded reference with identical seeds
-    import jax.numpy as jnp
-    seeds = jnp.arange(n, dtype=jnp.uint32) + jnp.uint32(
-        (3 * 0x9E3779B9) & 0xFFFFFFFF)
-    ref_states = jax.vmap(functools.partial(env_reset, cfg))(seeds)
-    fn, nf = make_obs_fn(cfg, "ram", None)
-    s2, obs2, r2, d2 = fused_env_step(cfg, ref_states,
-                                      jnp.asarray(acts), obs_fn=fn,
-                                      num_frames=nf, block_envs=4,
-                                      interpret=True)
-    np.testing.assert_allclose(np.asarray(obs1), np.asarray(obs2),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(r2), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(s1.cell_mass),
-                                  np.asarray(s2.cell_mass))

@@ -165,90 +165,3 @@ def test_polygon_flag_through_screen_frame():
         cfg, ScreenObsConfig(screen_len=32, agent_view=True,
                              polygon_edges=True), state))
     assert f.shape == (1, 32, 32, 4) and f.dtype == np.uint8
-
-
-def test_fused_polygon_vs_fan_oracle():
-    """The FUSED kernel's polygon mode (half-plane row intervals,
-    ops/fused_screen.py cells_poly/strip_count n_sides) passes the same
-    float64 fan-oracle sandwich as the XLA rasterizer: exact 5-gon
-    pellets, 7-gon foods, 50-gon cells. Viruses draw as circles in fused
-    polygon mode (polygon_virus="circle" — the wavy rim is concave and
-    XLA-only), checked here against a 1000-gon ~ circle oracle."""
-    import jax
-    from agarcl_tpu.ops.fused_screen import fused_screen_class_map
-
-    cfg = EnvConfig(num_agents=1, ticks_per_step=1, arena_size=200,
-                    num_pellets=4, num_viruses=1, mode=4)
-    state = env_reset(cfg, 3)
-    center = jnp.array([100.0, 100.0])
-    from agarcl_tpu.state import encode_pellet_key
-    ppos = state.pellet_xy_alive(cfg)[0]
-    for i, d in enumerate(((14.0, 3.0), (-17.0, 6.0), (5.0, -19.0),
-                           (-9.0, -13.0))):
-        ppos = ppos.at[i].set(center + jnp.array(d))
-    palive = jnp.zeros(ppos.shape[:1], bool).at[:4].set(True)
-    fpos = state.food_pos.at[0].set(center + jnp.array([24.0, -7.0]))
-    fpos = fpos.at[1].set(center + jnp.array([-26.0, -2.0]))
-    falive = jnp.zeros_like(state.food_alive).at[:2].set(True)
-    state = state.replace(
-        cell_pos=state.cell_pos.at[0, 0].set(center),
-        cell_mass=state.cell_mass.at[0, 0].set(400),
-        pellet_key=encode_pellet_key(cfg, ppos, palive),
-        food_pos=fpos, food_alive=falive,
-        virus_pos=state.virus_pos.at[0].set(center + jnp.array([0.0, 27.0])),
-        virus_alive=jnp.zeros_like(state.virus_alive).at[0].set(True))
-
-    S = 128
-    batched = jax.tree.map(lambda x: x[None], state)
-    cls = np.asarray(fused_screen_class_map(cfg, S, batched, block_envs=1,
-                                            interpret=True, poly=True))[0, 0]
-    wx, wy = pixel_grid(cfg, state, 0, S)
-
-    def rad(m):
-        return float(np.asarray(G.radius(jnp.float32(m))))
-
-    pel = [(np.asarray(state.pellet_xy_alive(cfg)[0])[i], rad(1.0))
-           for i in range(4)]
-    foo = [(np.asarray(state.food_pos)[i], rad(10.0)) for i in range(2)]
-    own = [(np.asarray(center), rad(400.0))]
-    vir = [(np.asarray(state.virus_pos)[0],
-            float(np.asarray(G.radius(state.virus_mass))[0]))]
-    check_class(cls, 2, wx, wy, pel, _SIDES_PELLET)
-    check_class(cls, 3, wx, wy, foo, _SIDES_FOOD)
-    check_class(cls, 4, wx, wy, own, _SIDES_CELL)
-    check_class(cls, 6, wx, wy, vir, 1000)   # circle ~ 1000-gon
-
-
-def test_fused_polygon_matches_xla_on_play():
-    """Fused polygon frames == the XLA rasterizer with the same
-    polygon_virus="circle" config on real played states (both paths pass
-    the fan oracle; boundary pixels agree here too).
-
-    Shapes kept small (4 envs, 48 px, block_envs=2): interpret-mode Pallas
-    materializes per-block traces on the host, and the round-4 8-env/64-px
-    version intermittently OOM-crashed its xdist worker on the 4-core CI
-    host."""
-    import functools
-    import jax
-    from agarcl_tpu.obs.screen import screen_frame
-    from agarcl_tpu.ops.fused_screen import fused_screen_frame
-    from agarcl_tpu.vec import VecEnv
-    cfg = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=120,
-                    num_pellets=64, num_viruses=4, num_bots=1, mode=7)
-    ocfg = ScreenObsConfig(screen_len=48, agent_view=True,
-                           polygon_edges=True, polygon_virus="circle")
-    env = VecEnv(cfg, 4, obs_type="none", backend="xla", donate=False)
-    states, _ = env.reset(11)
-    acts = jnp.tile(jnp.asarray([[0.6, -0.4, 0.0]], jnp.float32), (4, 1, 1))
-    for _ in range(4):
-        states, obs, r, d = env.step(states, acts)
-    ref = jax.jit(jax.vmap(functools.partial(screen_frame, cfg, ocfg)))(
-        states)
-    got = fused_screen_frame(cfg, ocfg, states, block_envs=2,
-                             interpret=True)
-    ref, got = np.asarray(ref), np.asarray(got)
-    diff = (ref != got).any(-1)
-    # different formulations (polar chord vs half-plane intervals) may
-    # disagree on exact-boundary pixels; none occur on these states, and
-    # anything beyond a stray boundary pixel is a real bug
-    assert diff.mean() < 2e-3, diff.sum()

@@ -15,6 +15,7 @@ import math
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from agarcl_tpu import EnvConfig, env_reset, env_step
 from agarcl_tpu.engine import geometry as G
@@ -43,18 +44,18 @@ def numpy_class_map(cfg, state, S):
     def radius(m):
         return np.float32(np.asarray(G.radius(jnp.float32(m))))
 
+    centroid = np.asarray(state.player_centroid(), F)
     for a in range(A):
         am = s["cell_alive"][a]
         mass = F(s["cell_mass"][a][am].sum())
-        w = s["cell_mass"][a][am].astype(F)
-        cx = F((s["cell_pos"][a][am, 0] * w).sum() / max(w.sum(), 1))
-        cy = F((s["cell_pos"][a][am, 1] * w).sum() / max(w.sum(), 1))
-        z = F(min(max(100.0 + mass / 10.0, 100.0), 900.0))
+        cx, cy = centroid[a]
+        # camera z = 100 + mass/10 in its pinned form (obs/screen.py)
+        z = F(min(max(F(F(1000.0) + mass) * F(0.1), F(100.0)), F(900.0)))
         half = F(z * TAN_HALF)
         idx = ((np.arange(S, dtype=F) + F(0.5)) * F(2.0) / F(S) - F(1.0))
         wx = cx + idx * half          # pixel-center world x, (S,)
         wy = cy + idx * half          # pixel-center world y (row 0 bottom)
-        ph = F(half / S)
+        ph = F(half * F(1.0 / S))
 
         cls = np.zeros((S, S), np.int32)
         # 8x8 arena grid lines (renderables.hpp:245-340)
@@ -180,3 +181,55 @@ def test_class_map_boundary_pixels():
         got = np.asarray(_class_map(cfg, state, S))
         want = numpy_class_map(cfg, state, S)
         assert (got == want).all(), f"S={S}"
+
+
+def _colors(cfg, cls, agent_view):
+    if agent_view:
+        return np.asarray(_AGENT_VIEW_COLORS)[cls]
+    return np.asarray(_rgb565(jnp.asarray(np.asarray(_NATURAL_COLORS)[cls])))
+
+
+@pytest.mark.parametrize("agent_view", [True, False],
+                         ids=["agent_view", "natural"])
+def test_screen_frame_multi_agent_matches_oracle(agent_view):
+    """Two agents and a bot: each agent renders from its own camera with
+    its own main/other split, pixel for pixel."""
+    cfg = EnvConfig(num_agents=2, ticks_per_step=2, arena_size=120,
+                    num_pellets=60, num_viruses=4, num_bots=1, mode=7)
+    state = _played_state(cfg, 21, 6)
+    S = 40
+    got = np.asarray(screen_frame(
+        cfg, ScreenObsConfig(screen_len=S, agent_view=agent_view), state))
+    want = _colors(cfg, numpy_class_map(cfg, state, S), agent_view)
+    assert got.shape == (2, S, S, 4 if agent_view else 3)
+    assert (got == want).all(), f"{np.count_nonzero(got != want)} values"
+    assert (got[0] != got[1]).any()
+
+
+def test_screen_frame_stacking_matches_oracle():
+    """num_frames=2 through env_step: the last two ticks each give a
+    frame, each equal to the oracle's rendering of that tick's state."""
+    import functools
+
+    import jax
+
+    from agarcl_tpu import apply_actions
+    from agarcl_tpu.engine.tick import engine_tick
+    cfg = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=100,
+                    num_pellets=40, num_viruses=2, num_bots=0, mode=4)
+    ocfg = ScreenObsConfig(screen_len=32, agent_view=True, num_frames=2)
+    s0 = _played_state(cfg, 9, 3)
+    acts = jnp.asarray([[0.7, -0.2, 0.0]], jnp.float32)
+    _, obs, _, _ = jax.jit(functools.partial(
+        env_step, cfg, obs_fn=functools.partial(screen_frame, cfg, ocfg),
+        num_frames=2))(s0, acts)
+    s = apply_actions(cfg, s0, acts)
+    tick = jax.jit(functools.partial(engine_tick, cfg))
+    want = []
+    for _ in range(cfg.ticks_per_step):
+        s = tick(s)
+        want.append(_colors(cfg, numpy_class_map(cfg, s, 32), True))
+    obs = np.asarray(obs)
+    assert obs.shape == (2, 1, 32, 32, 4)
+    assert (obs == np.stack(want[-2:])).all()
+    assert (obs[0] != obs[1]).any()

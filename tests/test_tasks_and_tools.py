@@ -47,7 +47,7 @@ def test_random_walk_driver_runs():
              "--task", "1", "--episodes", "1", "--obs", "ram",
              "--max-steps", "5", "--csv", csv_path],
             capture_output=True, text=True, timeout=300,
-            env={**os.environ, "AGARCL_PLATFORM": "cpu"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
             cwd=repo)
         assert out.returncode == 0, out.stderr[-2000:]
         rows = open(csv_path).read().strip().splitlines()
